@@ -2,7 +2,7 @@
 
 This is the semantic twin of the C++ skeleton's Joiner/Operators engine
 (Operators.cpp, Joiner.cpp): fully materializing, no padding, no device.
-It exists so every JAX/Pallas operator can be differentially tested against
+It exists so every JAX operator can be differentially tested against
 a second, independent implementation (SURVEY §7.2 step 1).
 
 Semantics (reference: query.c:325-467, inter_res.c, filter.c):

@@ -10,14 +10,10 @@ from .select import (
 )
 from .sort_join import (join_build, join_probe_count,
                         join_probe_count_table, join_emit)
-from .ms_join import join_probe_count_auto, join_probe_count_ms
-from .agg_join import (join_checksum_fused, join_checksum_fused_presorted,
+from .agg_join import (fused_join, join_checksum_fused,
+                       join_checksum_fused_presorted,
                        join_checksum_fused_table,
                        join_checksum_fused_table_pref, prefix_by_perm)
-from .radix_join import (fused_join_auto, ms_member_selected, plan_bits,
-                         radix_fused_static,
-                         radix_join_checksum, radix_member_selected,
-                         radix_prep_keys)
 from .cartesian import cartesian_indices
 
 __all__ = [
@@ -29,21 +25,13 @@ __all__ = [
     "checksum",
     "join_build",
     "join_probe_count",
-    "join_probe_count_auto",
-    "join_probe_count_ms",
     "join_emit",
+    "fused_join",
     "join_checksum_fused",
     "join_checksum_fused_presorted",
     "join_checksum_fused_table",
     "join_checksum_fused_table_pref",
     "prefix_by_perm",
     "join_probe_count_table",
-    "fused_join_auto",
-    "plan_bits",
-    "radix_fused_static",
-    "radix_join_checksum",
-    "radix_member_selected",
-    "ms_member_selected",
-    "radix_prep_keys",
     "cartesian_indices",
 ]

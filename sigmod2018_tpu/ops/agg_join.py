@@ -50,9 +50,8 @@ def _fused_from_sorted(sk: jax.Array, perm: jax.Array,
     maxv = jnp.array(jnp.iinfo(sk.dtype).max, sk.dtype)
     # ONE searchsorted for both range edges (see ops/sort_join.py:
     # side="right" at k == side="left" at k+1 for integer keys; dtype-max
-    # pins its right edge to n_build).  method="sort": duplicate-run
-    # degeneracy, ops/sort_join.py.  u64 keys rank via two stable u32
-    # limb passes (ops/lsd.py — the u64 sort comparator is ~20x u32).
+    # pins its right edge to n_build).  u64 keys rank through one stable
+    # sort of the combined array (ops/lsd.py).
     if sk.dtype == jnp.uint64:
         from .lsd import ranks_u64
 
@@ -78,8 +77,8 @@ def join_checksum_fused(build_keys: jax.Array, build_cols: jax.Array,
                         probe_cols: jax.Array, n_probe: jax.Array,
                         key32: bool = False):
     """key32 (both key columns < 2^32 by catalog stats): single-limb
-    uint32 sort + searchsorted — ~2x cheaper than the two-limb u64
-    lowering on TPU, bit-identical results (see ops/sort_join.py)."""
+    uint32 sort + searchsorted — half the key bytes of the u64 path,
+    bit-identical results (see ops/sort_join.py)."""
     Pb = build_keys.shape[0]
     live_b = jnp.arange(Pb, dtype=jnp.int32) < n_build
     iota = jnp.arange(Pb, dtype=jnp.int32)
@@ -197,3 +196,38 @@ def join_checksum_fused_presorted(sorted_keys: jax.Array, perm: jax.Array,
     sk = sorted_keys.astype(jnp.uint32) if key32 else sorted_keys
     return _fused_from_sorted(sk, perm, build_cols, n_build,
                               probe_keys, probe_cols, n_probe)
+
+
+def fused_join(keys_b, vals_b, n_b, keys_p, vals_p, n_p,
+               key32: bool = False, presorted=None, table=None,
+               table_prefs=None):
+    """The engine's fused-final-join entry: picks the member from the
+    prep artifacts the build side has.
+
+    - `table` (the build base column's (cumcnt rank table, perm), engine
+      device_key_table) with `table_prefs` (prep-time prefix sums of
+      every build-side view, [V, Pb+1], engine device_prefix_table):
+      probe-only work, `vals_b` unused (may be None);
+    - `table` alone: rank-table gathers + one build-side prefix sum;
+    - `presorted` (the build base column's prep-time (sorted_keys u64,
+      perm), engine device_sorted_column): skips the build-side sort;
+    - otherwise the sort member.
+
+    `key32`: both key columns' values < 2^32 (catalog stats), so the
+    sort members compare single-limb u32 keys.  Returns (count,
+    sums_build [Vb], sums_probe [Vp]), exact wrap-around uint64."""
+    n_b = jnp.int32(n_b)
+    n_p = jnp.int32(n_p)
+    if table is not None:
+        cumcnt, perm = table
+        if table_prefs is not None:
+            return join_checksum_fused_table_pref(cumcnt, table_prefs,
+                                                  keys_p, vals_p, n_p)
+        return join_checksum_fused_table(cumcnt, perm, vals_b, n_b,
+                                         keys_p, vals_p, n_p)
+    if presorted is not None:
+        sk, perm = presorted
+        return join_checksum_fused_presorted(sk, perm, vals_b, n_b, keys_p,
+                                             vals_p, n_p, key32=key32)
+    return join_checksum_fused(keys_b, vals_b, n_b, keys_p, vals_p, n_p,
+                               key32=key32)

@@ -1,35 +1,23 @@
-"""u64 sort / rank primitives with the measured-optimal TPU lowering.
+"""u64 sort / rank primitives.
 
-The XLA TPU sorter's cost is dominated by the COMPARATOR, and the
-pairings matter far more than intuition suggests.  Measured on the
-target chip at 2^23 rows (amortized device timing, RTT subtracted):
-
-    lax.sort (u32 key, i32)           num_keys=1 stable    22 ms
-    lax.sort (u64 key, i32)           num_keys=1 stable    30 ms
-    lax.sort (u64 key, i32, u64 val)  num_keys=2           45 ms
-    two-pass u32 LSD radix (lo, hi)   stable               50 ms
-    jnp.searchsorted(u64, 8M queries, method="sort")      284 ms
-
-Three consequences, encoded here and used across ops/:
+Three rules, used across ops/:
 
   1. u64 sorts run as ONE single-key stable sort — never num_keys=2
      with a liveness flag (stability + pads-at-suffix gives the same
-     order), and never a two-limb LSD decomposition (it loses to the
-     native comparator).
-  2. Rank queries (searchsorted) against u64 keys NEVER use
-     jnp.searchsorted's method="sort" (its lowering is ~8x a plain
-     sort).  `ranks_u64` computes ranks from one stable single-key sort
-     of the concatenated (haystack, queries) array + rank arithmetic,
-     with searchsorted's tie semantics (side=) reproduced by the
-     concatenation order under stability.
+     order).
+  2. Rank queries (searchsorted) against u64 keys do not use
+     jnp.searchsorted's method="sort".  `ranks_u64` computes ranks from
+     one stable single-key sort of the concatenated (haystack, queries)
+     array + rank arithmetic, with searchsorted's tie semantics (side=)
+     reproduced by the concatenation order under stability.
   3. Permutations ride sorts as i32 payloads; sorted values come from
-     the same sort — never argsort + O(P) gather (random gather is the
-     slowest primitive on this hardware, ~1-2 GB/s).
+     the same sort — never argsort + O(P) gather.
 
-Reference mapping: drop-in primitives for where the reference builds
-radix partitions and bucket-chain indexes (preprocess.c:13-178,
-rhjoin.c:219-309); the lowering choices themselves are pure TPU cost
-model, no reference analog.
+These lowering choices were made by measurement on the backend the
+engine was first built for; they have not yet been re-measured on the
+GPU (ROADMAP).  Reference mapping: drop-in primitives for where the
+reference builds radix partitions and bucket-chain indexes
+(preprocess.c:13-178, rhjoin.c:219-309).
 """
 
 from __future__ import annotations
@@ -63,12 +51,12 @@ def argsort_u64(keys: jax.Array) -> jax.Array:
 
 def ranks_u64(sorted_keys: jax.Array, queries: jax.Array,
               side: str = "left") -> jax.Array:
-    """searchsorted over u64 keys without its catastrophic lowering.
+    """searchsorted over u64 keys through one stable sort.
 
     Returns, per query q, #elements of `sorted_keys` < q (side="left")
     or <= q (side="right") — identical to ``jnp.searchsorted(...,
-    method="sort")`` but ~4x faster (one stable single-key sort of the
-    combined array instead of the method="sort" comparator blowup).
+    method="sort")``, from one stable single-key sort of the combined
+    array.
 
     Tie order comes from the concatenation order under stability:
     queries FIRST for side="left" (a query precedes equal haystack
@@ -79,20 +67,22 @@ def ranks_u64(sorted_keys: jax.Array, queries: jax.Array,
     """
     N = sorted_keys.shape[0]
     Q = queries.shape[0]
-    ar_q = jnp.arange(Q, dtype=jnp.int32)
-    ones_q = jnp.ones(Q, jnp.int32)
-    zeros_n = jnp.zeros(N, jnp.int32)
+    # The barrier keeps XLA from constant-folding the index arrays below
+    # into (N+Q)-element literals: on the GPU such literals cost minutes
+    # of compile time and bloat every executable that ranks u64 keys.
+    pos = jax.lax.optimization_barrier(jnp.arange(N + Q, dtype=jnp.int32))
     if side == "left":
         comb = jnp.concatenate([queries, sorted_keys])
-        isq = jnp.concatenate([ones_q, zeros_n])
-        qidx = jnp.concatenate([ar_q, zeros_n])
+        is_query = pos < Q
+        qpos = pos
     else:
         comb = jnp.concatenate([sorted_keys, queries])
-        isq = jnp.concatenate([zeros_n, ones_q])
-        qidx = jnp.concatenate([zeros_n, ar_q])
+        is_query = pos >= N
+        qpos = pos - N
+    isq = is_query.astype(jnp.int32)
+    qidx = jnp.where(is_query, qpos, 0)
     _, isq_s, qidx_s = jax.lax.sort((comb, isq, qidx), num_keys=1,
                                     is_stable=True)
-    pos = jnp.arange(N + Q, dtype=jnp.int32)
     q_before = jnp.cumsum(isq_s) - isq_s  # queries strictly before pos
     rank = pos - q_before
     key2 = jnp.where(isq_s == 1, qidx_s, jnp.int32(Q)).astype(jnp.uint32)

@@ -2,10 +2,10 @@
 
 The reference's filter (filter.c:92-190), self-join (inter_res.c:234-263) and
 same-node join (JoinInterNode, inter_res.c:363-389) are all per-row scalar
-loops emitting into linked result buffers.  On TPU each of them is the same
+loops emitting into linked result buffers.  Here each of them is the same
 two-step vectorized program:
 
-    mask = elementwise compare          (VPU, one pass over the column)
+    mask = elementwise compare          (one pass over the column)
     positions = compaction of the mask  (prefix-sum scatter; XLA lowers
                                          jnp.nonzero(size=) to cumsum+scatter)
 
@@ -53,11 +53,10 @@ def mask_positions(mask: jax.Array, out_size: int):
     positions has static length out_size, padded with 0 (a safe gather
     index); count is the number of valid entries.
 
-    One stable u32 sort ((not mask) as the key, iota as payload) —
-    `jnp.nonzero(size=)` lowers to cumsum + scatter, and scatter is
-    this hardware's slowest primitive (measured 147 ms vs ~7 ms for
-    the sort at 2M rows; the same sorts-beat-scatters rule every join
-    member is built on)."""
+    One stable u32 sort ((not mask) as the key, iota as payload) in
+    place of `jnp.nonzero(size=)`'s cumsum + scatter — a choice made
+    for a backend where scatters were slow; not yet re-measured on the
+    GPU."""
     count = jnp.sum(mask, dtype=jnp.int32)
     P = mask.shape[0]
     iota = jnp.arange(P, dtype=jnp.int32)

@@ -2,7 +2,7 @@
 
 The reference joins by radix-partitioning both sides on the low key bits and
 pointer-chasing a per-bucket bucket-chain hash index (rhjoin.c:141-309).
-Pointer chasing has no TPU equivalent; the TPU-native restatement is:
+The data-parallel restatement, with no per-row control flow, is:
 
   build:  sort the smaller side's keys once (XLA sort, O(n log n) on device)
   probe:  two vectorized binary searches per probe key give the contiguous
@@ -18,8 +18,6 @@ build side and are excluded by clamping match ranges to `n_build`; padded
 probe rows get count 0.  A *valid* key equal to 2^64-1 still joins
 correctly: its valid copies sort immediately before the padding and the
 clamp keeps exactly them.
-
-An alternative Pallas radix-partitioned path lives in radix_join.py.
 """
 
 from __future__ import annotations
@@ -42,8 +40,8 @@ def _ccum_total(cnt: jax.Array):
     positions pairs inside a ≤ spec_max-sized emit, and a query whose
     true total overflows the guessed class is discarded and re-run by
     the caller regardless, so wrapped ccum values can never reach an
-    accepted result.  Single-limb cumsum + searchsorted are ~2x the
-    two-limb i64 lowering on TPU."""
+    accepted result.  Single-limb cumsum + searchsorted move half the
+    bytes of the i64 lowering."""
     return jnp.cumsum(cnt), jnp.sum(cnt.astype(jnp.int64))
 
 
@@ -53,13 +51,11 @@ def join_build(keys: jax.Array, n_valid: jax.Array, key32: bool = False):
     forced to the dtype max so they sort last.
 
     `key32` (catalog stats bound every value under 2^32): sort uint32
-    instead of uint64 — the TPU sorter's u64 comparator is ~20x the u32
-    one (measured; see ops/lsd.py), so the u64 case runs as two stable
-    u32 limb passes (LSD) and the u32 case as one.  Values < 2^32 keep
-    their order under the downcast, and stability breaks ties by index
-    either way, so the permutation is bit-identical to a stable u64
-    argsort's.  The perm rides the sort as a payload — no argsort +
-    O(P) gather (gathers are the slowest primitive on this hardware)."""
+    instead of uint64 — half the key bytes through the sorter.  Values
+    < 2^32 keep their order under the downcast, and stability breaks
+    ties by index either way, so the permutation is bit-identical to a
+    stable u64 argsort's.  The perm rides the sort as a payload — no
+    argsort + O(P) gather."""
     P = keys.shape[0]
     live = jnp.arange(P, dtype=jnp.int32) < n_valid
     iota = jnp.arange(P, dtype=jnp.int32)
@@ -95,11 +91,11 @@ def join_probe_count(sorted_keys: jax.Array, n_build: jax.Array,
     Pp = probe_keys.shape[0]
     pk = probe_keys.astype(sorted_keys.dtype)
     maxv = jnp.array(jnp.iinfo(sorted_keys.dtype).max, sorted_keys.dtype)
-    # method="sort": the default scan-based binary search degenerates (~1000x)
-    # on TPU when the sorted array contains duplicate runs — which every
-    # real key column and every cumsum of counts has.  The sort-based
-    # lowering is data-independent.  u64 keys rank via two stable u32
-    # limb passes instead (ops/lsd.py: the u64 comparator is ~20x u32).
+    # method="sort": a data-independent sort-based lowering, chosen when
+    # the engine ran on another backend where the scan-based binary
+    # search degenerated on duplicate runs.  Not yet re-measured on the
+    # GPU.  u64 keys rank through one stable sort of the combined array
+    # (ops/lsd.py).
     if sorted_keys.dtype == jnp.uint64:
         from .lsd import ranks_u64
 
@@ -125,8 +121,8 @@ def join_probe_count_table(cumcnt: jax.Array,
     device_key_table): cumcnt[k] = #build rows with key < k, for
     k in [0, u+2] where u = the column's exact max (catalog stats), so
     the table has u+3 entries and cumcnt.shape statically encodes u.
-    Built once in the untimed prep window (the TPU-native restatement of
-    the reference's per-join bucket-chain index, rhjoin.c:219-309: both
+    Built once in the untimed prep window (the data-parallel restatement
+    of the reference's per-join bucket-chain index, rhjoin.c:219-309: both
     answer "which build rows carry key k" without pointer chasing —
     here as two gathers into a rank table).
 

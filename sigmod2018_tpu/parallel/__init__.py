@@ -1,4 +1,4 @@
-"""Multi-chip SPMD execution: mesh, hash-shuffle exchange, distributed join.
+"""Multi-device SPMD execution: mesh, hash-shuffle exchange, distributed join.
 
 Replaces the reference's pthread pool (scheduler.c) with SPMD programs over
 a `jax.sharding.Mesh` — see dist.py for the design notes.
@@ -18,12 +18,12 @@ from .dist import (
     row_sharding,
 )
 
-from .multihost import flat_mesh_dcn_last, hier_mesh, init_distributed
+from .multihost import flat_mesh_host_major, hier_mesh, init_distributed
 
 __all__ = [
     "AXIS",
     "exchange_multi",
-    "flat_mesh_dcn_last",
+    "flat_mesh_host_major",
     "hier_mesh",
     "init_distributed",
     "exchange",

@@ -1,15 +1,15 @@
-"""Multi-chip SPMD join: hash-shuffle over a device mesh + local sort-join.
+"""Multi-device SPMD join: hash-shuffle over a device mesh + local sort-join.
 
 The reference engine's only parallelism is a 4-thread pthread pool with
 fork/join barriers on one shared-memory node (scheduler.c, preprocess.c).
-The TPU-native restatement scales across chips instead (SURVEY §2.3):
+This restatement scales across devices instead (SURVEY §2.3):
 
 - every relation column is row-sharded over a 1-D `jax.sharding.Mesh`
   (each chip owns a contiguous ~T/n slice),
 - the radix partition's first level becomes a cross-chip hash shuffle:
   each chip buckets its local rows by `key mod n_devices` and exchanges
-  the buckets with `jax.lax.all_to_all` (ICI within a slice, DCN across
-  hosts),
+  the buckets with `jax.lax.all_to_all` (within a node, and across
+  nodes on a multi-host mesh),
 - after the shuffle every chip owns *all* rows of its key range, so the
   join is chip-local: XLA sort + searchsorted, identical to the
   single-chip path in ops/sort_join.py,
@@ -97,7 +97,7 @@ def partition_for_exchange(keys: jax.Array, payload: jax.Array,
     """Group local rows into [ndev, cap] per-destination send buffers.
 
     One stable counting-sort pass (argsort on the destination id), then a
-    scatter into (dest, rank-within-dest) slots — the TPU restatement of
+    scatter into (dest, rank-within-dest) slots — the data-parallel restatement of
     the reference's rescanning PartitionJob (preprocess.c:222-299).
 
     Returns (send_keys [ndev,cap] u64 PAD-filled, send_payload [ndev,cap],
@@ -162,8 +162,7 @@ def local_join_checksum(bkeys: jax.Array, bvals: jax.Array, n_build: jax.Array,
     sk = k[perm]
     sv = jnp.where(live_b, bvals, 0)[perm].astype(jnp.uint64)
     pref = jnp.concatenate([jnp.zeros((1,), jnp.uint64), jnp.cumsum(sv)])
-    # method="sort": see ops/sort_join.py — scan-based search degenerates on
-    # duplicate key runs on TPU.
+    # method="sort": see ops/sort_join.py.
     lo = jnp.minimum(jnp.searchsorted(sk, pkeys, side="left", method="sort"), n_build)
     hi = jnp.minimum(jnp.searchsorted(sk, pkeys, side="right", method="sort"), n_build)
     Pp = pkeys.shape[0]
@@ -294,8 +293,8 @@ def partition_multi(keys: jax.Array, payloads, live: jax.Array,
 def _ring_all_to_all(x: jax.Array) -> jax.Array:
     """all_to_all over the first axis, decomposed into ndev-1 `ppermute`
     neighbor-distance hops (SURVEY §5 "long-axis" row: the ring
-    alternative for when the full-fanout all_to_all exceeds ICI
-    bisection — each hop k moves every chip's row for its distance-k
+    alternative for meshes whose links cannot carry a full-fanout
+    all_to_all at once — each hop k moves every chip's row for its distance-k
     peer directly, so traffic per step is one [cap] row per chip and
     the collective never concentrates on a single link).
 

@@ -8,7 +8,7 @@ ad-hoc cross-shard gathers of row-sharded columns — exactly the pattern
 SURVEY §2.3 says to replace with hash-partition all-to-all (reference
 semantics: every join is the parallel join, query.c:408-461).
 
-Design (the TPU-native distributed query execution):
+Design (the distributed query execution):
 
 - Base columns are row-sharded over a 1-D mesh; all per-chip state lives
   *inside* shard_map, so the only collectives are the ones written here:
@@ -48,7 +48,7 @@ Design (the TPU-native distributed query execution):
   intermediate join, learning the exact per-chip caps).
 
 Single-join queries: ONE SPMD program, zero host syncs, all collectives
-over ICI.
+between the devices.
 """
 
 from __future__ import annotations
@@ -136,8 +136,8 @@ class DistCompiledEngine(CompiledEngine):
         self.join_strategies: List[str] = []
         # analytic per-join communication model (VERDICT r3 #9): one
         # entry per non-selection join, appended at trace time with
-        # STATIC shapes — the bytes each strategy moves over ICI/DCN,
-        # checkable before real multi-chip hardware exists.  Printed
+        # STATIC shapes — the bytes each strategy moves between devices,
+        # checkable without running the mesh.  Printed
         # per plan under S18_EXPLAIN=1.
         self.comm_model: List[dict] = []
 
@@ -310,7 +310,7 @@ class DistCompiledEngine(CompiledEngine):
         explain = self.config.explain
 
         def note_comm(idx, strategy, **kw):
-            """Trace-time (static-shape) ICI/DCN byte accounting for one
+            """Trace-time (static-shape) cross-device byte accounting for one
             join.  Shuffle: both sides' [ndev, cap] send buffers cross
             the mesh except the diagonal (1 key + payload u64 columns).
             Broadcast: the build side (keys + liveness + payloads) is
@@ -323,26 +323,26 @@ class DistCompiledEngine(CompiledEngine):
             per_side = lambda cap, npay: (ndev * (ndev - 1) * cap
                                           * 8 * (1 + npay))
             if strategy == "shuffle":
-                bytes_ici = (per_side(kw["cap_b"], kw["npay_b"])
+                bytes_moved = (per_side(kw["cap_b"], kw["npay_b"])
                              + per_side(kw["cap_p"], kw["npay_p"]))
             elif strategy == "skew":
                 hc = kw["hot_cap"]
-                bytes_ici = (per_side(kw["cap_b"], kw["npay_b"])
+                bytes_moved = (per_side(kw["cap_b"], kw["npay_b"])
                              + per_side(kw["cap_p"], kw["npay_p"])
                              + ndev * (ndev - 1)
                              * (hc * 8 * (1 + kw["npay_b"]) + hc))
             else:
                 L = kw["L_b"]
-                bytes_ici = (ndev * (ndev - 1)
+                bytes_moved = (ndev * (ndev - 1)
                              * (L * 8 * (1 + kw["npay_b"]) + L))
             entry = dict(join=idx, strategy=strategy,
-                         bytes_ici=int(bytes_ici), **kw)
+                         bytes_moved=int(bytes_moved), **kw)
             comm_model.append(entry)
             if explain:
                 import sys
 
                 print(f"--   comm join{idx}: {strategy} "
-                      f"bytes_ici={bytes_ici} {kw}", file=sys.stderr)
+                      f"bytes_moved={bytes_moved} {kw}", file=sys.stderr)
 
         skew_factor = self.config.skew_factor
         min_pad = self.config.min_pad
@@ -732,7 +732,7 @@ class DistCompiledEngine(CompiledEngine):
 
                 # --- intermediate: chip-local sort-join emit -----------
                 sorted_keys, perm = ops.join_build(rkb, nb)
-                lo, cnt, ccum, total_loc = ops.join_probe_count_auto(
+                lo, cnt, ccum, total_loc = ops.join_probe_count(
                     sorted_keys, nb, rkp, npr)
                 g_total = jax.lax.psum(total_loc, AXIS)
                 l_max = jax.lax.pmax(total_loc, AXIS)

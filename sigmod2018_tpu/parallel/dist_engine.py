@@ -1,6 +1,6 @@
 """Distributed full-query engine: row-sharded tables + GSPMD.
 
-Two multi-chip layers exist by design (SURVEY §2.3):
+Two multi-device layers exist by design (SURVEY §2.3):
 
 - `dist.py` — hand-written shard_map programs for the hot path (hash
   shuffle + chip-local join + psum), where the collective schedule is
@@ -76,14 +76,14 @@ class DistJaxEngine(JaxEngine):
 
     def _fused_join_packed(self, keys_b, bcols, n_b, keys_p, pcols, n_p,
                            key32: bool = False, presorted=None, table=None,
-                           table_prefs=None, presorted_p=None):
-        # `presorted`/`table`/`table_prefs`/`presorted_p` (single-chip
-        # prep artifacts) do not apply: the build side re-partitions
+                           table_prefs=None):
+        # `presorted`/`table`/`table_prefs` (single-device prep
+        # artifacts) do not apply: the build side re-partitions
         # across chips in the shuffle below (prep_join_artifacts=False
         # keeps them None).
         """Route the fused final join through the hand-written shard_map
         hash-shuffle (dist.py) instead of GSPMD propagation: each chip
-        buckets its rows by key, all_to_all exchanges them over ICI, the
+        buckets its rows by key, all_to_all exchanges them between devices, the
         join runs chip-local, and the packed result psums back."""
         from .dist import make_fused_shuffle_join, make_shuffle_caps
 

@@ -1,4 +1,4 @@
-"""Multi-host runtime: process bring-up + ICI/DCN-aware meshes.
+"""Multi-host runtime: process bring-up + host-aware meshes.
 
 The reference is a single shared-memory process (its only runtime is the
 pthread pool, scheduler.c); this module is the framework's cross-host
@@ -8,14 +8,15 @@ story (VERDICT r1 missing #3), structured the JAX-native way:
   from `S18_COORD*` env (or provider auto-detection when unset on a
   real pod).  After it, `jax.devices()` spans every host and the
   engines' shard_map programs run unchanged — SPMD means the per-chip
-  program text is identical whether the mesh axis crosses ICI or DCN.
+  program text is identical whether the mesh axis stays within a node
+  or crosses nodes.
 - **topology**: `hier_mesh()` builds a 2-D ("host", "chip") mesh from
-  `jax.devices()` grouped by `process_index`, and `flat_mesh_dcn_last()`
+  `jax.devices()` grouped by `process_index`, and `flat_mesh_host_major()`
   flattens it so the engine's 1-D shuffle axis enumerates same-host
   chips consecutively — the all_to_all's dense chip-to-chip traffic
-  then rides ICI between neighbors and crosses DCN only between host
-  blocks.  For fanouts past ICI bisection, `dist._ring_all_to_all`
-  (S18_EXCHANGE=ring) decomposes the shuffle into neighbor hops.
+  then stays within a node between neighbors and crosses nodes only
+  between host blocks.  `dist._ring_all_to_all` (S18_EXCHANGE=ring)
+  decomposes the shuffle into neighbor hops.
 
 No multi-host hardware exists in CI; the topology logic is tested on
 the 8-device virtual CPU mesh by faking the host grouping, and the
@@ -70,8 +71,8 @@ def _devices_by_host(devices: Optional[Sequence] = None):
 
 def hier_mesh(devices: Optional[Sequence] = None,
               fake_hosts: Optional[int] = None) -> Mesh:
-    """2-D ("host", "chip") mesh: axis 0 crosses DCN, axis 1 stays on
-    ICI.  Engine programs that want hierarchical collectives (e.g. a
+    """2-D ("host", "chip") mesh: axis 0 crosses nodes, axis 1 stays
+    within a node.  Engine programs that want hierarchical collectives (e.g. a
     per-host partial psum before the cross-host reduce) shard over both
     axes.  `fake_hosts` splits a single-process device list into that
     many synthetic host groups — CI-only, for topology tests."""
@@ -86,12 +87,12 @@ def hier_mesh(devices: Optional[Sequence] = None,
     return Mesh(grid, (HOST_AXIS, CHIP_AXIS))
 
 
-def flat_mesh_dcn_last(devices: Optional[Sequence] = None,
-                       fake_hosts: Optional[int] = None) -> Mesh:
+def flat_mesh_host_major(devices: Optional[Sequence] = None,
+                         fake_hosts: Optional[int] = None) -> Mesh:
     """1-D mesh for the engines' shuffle axis, ordered host-major so
     consecutive mesh positions are same-host chips: a shifted/ring
-    exchange then does most hops over ICI, and the `key mod ndev`
-    hash-shuffle's per-destination buffers cross DCN only for the
+    exchange then does most hops within a node, and the `key mod ndev`
+    hash-shuffle's per-destination buffers cross nodes only for the
     ~(n_hosts-1)/n_hosts fraction that must."""
     from .dist import AXIS
 

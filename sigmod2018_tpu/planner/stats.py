@@ -30,7 +30,7 @@ _MASK64 = (1 << 64) - 1
 # and EVERY candidate join estimates f1*f2, so the DP cannot see that
 # chaining from the filtered relation keeps intermediates tiny
 # (observed on workloads/scaled: a 4-relation chain planned backwards,
-# 20M-row intermediates instead of ~100, 5 s/query instead of 65 ms).
+# 20M-row intermediates instead of ~100).
 import os as _os
 
 ESTIMATOR = _os.environ.get("S18_ESTIMATOR", "dbound")

@@ -214,8 +214,8 @@ class Catalog:
 
         Base columns are np.memmap views; NumPy fancy indexing through
         a memmap goes via its Python __getitem__ with extra copies —
-        measured 0.9 s of the host oracle's 2.1 s small-workload pass
-        was memmap gathers.  The host serving tiers (warm-up oracle,
+        most of the host oracle's small-workload pass was memmap
+        gathers.  The host serving tiers (warm-up oracle,
         poisoned-device last resort, factorized NumPy twin) gather per
         query, so one materialization pays for itself immediately.
         In-memory relations pass through without a copy."""

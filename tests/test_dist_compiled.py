@@ -159,15 +159,15 @@ def test_ring_exchange_matches_a2a(mesh, catalog):
 
 
 def test_hier_mesh_topology(mesh):
-    """hier_mesh/flat_mesh_dcn_last group devices host-major so the 1-D
+    """hier_mesh/flat_mesh_host_major group devices host-major so the 1-D
     shuffle axis keeps same-host chips adjacent (multihost.py; CI fakes
     the host grouping — one process owns all virtual devices)."""
-    from sigmod2018_tpu.parallel import flat_mesh_dcn_last, hier_mesh
+    from sigmod2018_tpu.parallel import flat_mesh_host_major, hier_mesh
 
     hm = hier_mesh(fake_hosts=2)
     assert hm.devices.shape == (2, len(jax.devices()) // 2)
     assert hm.axis_names == ("host", "chip")
-    fm = flat_mesh_dcn_last(fake_hosts=2)
+    fm = flat_mesh_host_major(fake_hosts=2)
     devs = list(fm.devices.reshape(-1))
     half = len(devs) // 2
     # first half of the flat axis = host 0's chips, in order
@@ -254,7 +254,7 @@ def test_undersized_exchange_cap_retries_exactly(mesh):
 
 
 def test_comm_model_pins_bytes(mesh):
-    """VERDICT r3 #9: the analytic ICI byte model is recorded per join
+    """VERDICT r3 #9: the analytic cross-device byte model is recorded per join
     at trace time and matches the hand-computed volume of the chosen
     strategy, so multi-chip communication is checkable without real
     multi-chip hardware."""
@@ -268,15 +268,15 @@ def test_comm_model_pins_bytes(mesh):
     for e in shuffles:
         per_side = lambda cap, npay: (N_DEV * (N_DEV - 1) * cap
                                       * 8 * (1 + npay))
-        assert e["bytes_ici"] == (per_side(e["cap_b"], e["npay_b"])
+        assert e["bytes_moved"] == (per_side(e["cap_b"], e["npay_b"])
                                   + per_side(e["cap_p"], e["npay_p"]))
     # learned caps shrink the modeled bytes on the next execution
-    before = sum(e["bytes_ici"] for e in shuffles)
+    before = sum(e["bytes_moved"] for e in shuffles)
     eng.comm_model.clear()
     assert eng.execute(q) == execute_query_numpy(q, cat)
     shuffles2 = [e for e in eng.comm_model if e["strategy"] == "shuffle"]
     if shuffles2:  # capped program may be cached from run 1's retry
-        after = sum(e["bytes_ici"] for e in shuffles2)
+        after = sum(e["bytes_moved"] for e in shuffles2)
         assert after <= before
     # broadcast model: small build side all_gathered, probe moves nothing
     eng2 = DistCompiledEngine(cat, EngineConfig(bcast_threshold=1 << 20),
@@ -285,7 +285,7 @@ def test_comm_model_pins_bytes(mesh):
     bcasts = [e for e in eng2.comm_model if e["strategy"] == "broadcast"]
     assert bcasts
     for e in bcasts:
-        assert e["bytes_ici"] == (N_DEV * (N_DEV - 1)
+        assert e["bytes_moved"] == (N_DEV * (N_DEV - 1)
                                   * (e["L_b"] * 8 * (1 + e["npay_b"])
                                      + e["L_b"]))
 

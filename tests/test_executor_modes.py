@@ -63,13 +63,6 @@ def test_compiled_engine_fuse_modes(rand_catalog, fuse):
         assert eng.execute(q) == execute_query_numpy(q, rand_catalog), (qtext, fuse)
 
 
-def test_radix_join_algo_matches_oracle(rand_catalog):
-    eng = JaxEngine(rand_catalog, EngineConfig(join_algo="radix", radix_bits=4))
-    for qtext in QUERIES:
-        q = parse_query(qtext)
-        assert eng.execute(q) == execute_query_numpy(q, rand_catalog), qtext
-
-
 def test_fused_path_taken(rand_catalog):
     eng = JaxEngine(rand_catalog, EngineConfig(fuse_final_join=True))
     res = eng.execute_async(parse_query("0 1|0.0=1.0|0.1 1.2"))
@@ -293,7 +286,7 @@ def test_compiled_fused_table_program_is_sort_free():
     sperms = tuple(p[1] for p in spairs)
     hlo = C._run_segments.lower(
         skel, joins, key32, (), cols_used, ns, eng.config.min_pad,
-        True, eng.config.join_algo, consts, cols,
+        True, consts, cols,
         jkeys, scols, sperms, tkeys, tcols, fkeys, fprefs,
     ).as_text()
     assert "sort(" not in hlo and " sort" not in hlo.lower(), \

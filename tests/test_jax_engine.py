@@ -113,3 +113,47 @@ def test_empty_join_null_despite_bucket_overlap():
 
     ceng = CompiledEngine(cat, EngineConfig())
     assert ceng.execute(q) == "NULL NULL"
+
+
+class _PoisonPacked:
+    """Mimics a device array whose program failed: any materialization
+    raises (jax defers program errors to the fetch)."""
+
+    ndim = 1
+
+    def __array__(self, *a, **k):
+        raise RuntimeError("deferred device failure")
+
+
+def test_fetch_retry_recovers_single():
+    from sigmod2018_tpu.engine.compiled import SpecResult
+
+    calls = []
+    res = SpecResult(_PoisonPacked(), 2, (), 0, retry=lambda: "")
+    res.fetch_retry = lambda: calls.append(1) or "42 43"
+    assert res.line() == "42 43"
+    assert calls == [1]
+
+
+def test_fetch_retry_raises_without_handler():
+    from sigmod2018_tpu.engine.compiled import SpecResult
+
+    res = SpecResult(_PoisonPacked(), 1, (), 0, retry=lambda: "")
+    with pytest.raises(RuntimeError):
+        res.line()
+
+
+def test_format_batch_survives_poisoned_program():
+    """One poisoned program must not fail the whole batch: the flat
+    fetch falls back to per-result fetches + per-result recovery."""
+    import jax.numpy as jnp
+
+    from sigmod2018_tpu.engine.compiled import SpecResult
+    from sigmod2018_tpu.engine.executor import format_batch
+
+    good = SpecResult(jnp.asarray(np.array([3, 7, 9], np.uint64)), 2,
+                      (), 0, retry=lambda: "")
+    bad = SpecResult(_PoisonPacked(), 1, (), 0, retry=lambda: "")
+    bad.fetch_retry = lambda: "99"
+    lines = format_batch([good, bad, "NULL"])
+    assert lines == ["7 9", "99", "NULL"]

@@ -1,7 +1,7 @@
 """LSD u64 sort / rank primitives (ops/lsd.py) vs NumPy + lax oracles.
 
-The engine replaces every u64-keyed lax.sort / searchsorted with two
-stable u32 passes (the TPU u64 comparator is ~20x slower); these tests
+The engine ranks u64 keys through one stable sort of the combined
+array instead of searchsorted's method="sort" lowering; these tests
 pin bit-identical behavior, including the stability guarantees callers
 rely on (pad rows at 2^64-1 staying behind live 2^64-1 keys)."""
 

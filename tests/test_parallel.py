@@ -1,6 +1,6 @@
-"""Multi-chip SPMD tests on the 8-device virtual CPU mesh (conftest.py).
+"""Multi-device SPMD tests on the 8-device virtual CPU mesh (conftest.py).
 
-These run unmodified on a real TPU slice; here they validate the shuffle
+The same programs run on a real multi-GPU mesh; here they validate the shuffle
 and the distributed join against a NumPy oracle (SURVEY §4 implication (c)).
 """
 

@@ -141,8 +141,8 @@ def test_join_orders_match_reference_joinenum(small_catalog, small_workload):
     semantics): the default "dbound" estimator deliberately diverges —
     it adds the System-R distinct bound the reference lacks, which
     fixes the backwards chain plans the span formula produces after
-    equality filters (planner/stats.py ESTIMATOR comment; measured
-    5 s -> 65 ms per query on workloads/scaled)."""
+    equality filters (planner/stats.py ESTIMATOR comment; 20M-row
+    intermediates instead of ~100 on workloads/scaled)."""
     import pathlib
 
     from sigmod2018_tpu.planner import stats as _stats

@@ -10,6 +10,11 @@ from the NumPy oracle).  Profiles:
 
 Usage: python tools/gen_workload.py OUT_DIR [--profile uniform|zipf|scaled]
        [--relations N] [--rows N] [--queries N] [--seed N] [--scale N]
+       [--relations-only]
+
+--relations-only stops after the relation binaries and NAME.init: the
+random stream up to that point is the full run's, so the binaries are
+byte-identical to a full run's, without the oracle's query answers.
 """
 
 from __future__ import annotations
@@ -25,27 +30,43 @@ from sigmod2018_tpu.storage.catalog import Catalog
 from sigmod2018_tpu.storage.relation import Relation, store_relation
 
 
+ZIPF_A = 1.3  # Zipf exponent of the skewed profiles
+
+
+def zipf_ranks(rng, n: int, keyspace: int, a: float = ZIPF_A) -> np.ndarray:
+    """n Zipf(a) ranks in [1, keyspace]: P(r) ~ r^-a below the keyspace,
+    the rest of the unbounded law's mass (the clipped tail) on rank
+    `keyspace`.  Drawn by inverse CDF from `rng.integers` with an
+    integer CDF, so the stream is the same on every NumPy version
+    (`Generator.zipf`'s sampler differs between versions)."""
+    scale = 1 << 52
+    w = np.array([int(r ** -a * scale) for r in range(1, keyspace)],
+                 dtype=np.int64)
+    # zeta(a) - sum_{r<k} r^-a, by the Euler-Maclaurin tail at k
+    tail = (keyspace ** (1 - a) / (a - 1) + 0.5 * keyspace ** -a)
+    cdf = np.cumsum(np.append(w, int(tail * scale)), dtype=np.int64)
+    u = rng.integers(0, int(cdf[-1]), size=n, dtype=np.int64)
+    return np.searchsorted(cdf, u, side="right").astype(np.uint64) + 1
+
+
 def gen_relation(rng, rows: int, cols: int, profile: str, keyspace: int,
                  lut=None) -> Relation:
     data = []
     for _ in range(cols):
         if profile == "zipf":
-            col = np.minimum(rng.zipf(1.3, size=rows), keyspace).astype(np.uint64)
+            col = zipf_ranks(rng, rows, keyspace)
         elif profile == "bigdom":
             # Same collision structure as uniform (keyspace distinct
             # values, shared across relations via the workload LUT) but
             # spread over a ~2^40 domain: key tables (bounded-domain
             # rank tables, config.key_table_max) are impossible, so the
-            # at-scale join path is the Pallas radix member.
+            # at-scale joins take the sort members.
             col = lut[rng.integers(0, keyspace, size=rows)]
         elif profile == "zipfbig":
-            # Heavy-hitter ranks over the huge domain: at radix scale
-            # the hot buckets overflow their static slots, so this
-            # exercises the on-device overflow cond's merge branch and
-            # the skew machinery end-to-end.
-            ranks = np.minimum(rng.zipf(1.3, size=rows),
-                               keyspace).astype(np.int64) - 1
-            col = lut[ranks]
+            # Heavy-hitter ranks over the huge domain: hot keys at scale
+            # with no key tables, exercising the sort members on long
+            # duplicate runs and the skew machinery end-to-end.
+            col = lut[zipf_ranks(rng, rows, keyspace).astype(np.int64) - 1]
         else:
             col = rng.integers(0, keyspace, size=rows, dtype=np.uint64)
         data.append(col)
@@ -94,6 +115,8 @@ def main() -> None:
     ap.add_argument("--cap", type=int, default=0,
                     help="max intermediate rows before a query is "
                          "regenerated (default: max(2M, rows*50))")
+    ap.add_argument("--relations-only", action="store_true",
+                    help="write the relations and NAME.init only")
     args = ap.parse_args()
 
     out = Path(args.out)
@@ -117,6 +140,9 @@ def main() -> None:
         rels.append(rel)
         init_lines.append(f"r{i}")
     (out / f"{name}.init").write_text("\n".join(init_lines) + "\n")
+    if args.relations_only:
+        print(f"{name}: {args.relations} relations x {rows} rows -> {out}")
+        return
 
     from sigmod2018_tpu.engine.factorized import execute_query_factorized_np
     from sigmod2018_tpu.engine.oracle import OracleOverflow

@@ -9,6 +9,7 @@ one program, so chunks of a few hundred queries are safe.
 
 Usage: python tools/soak.py [N] [SEED] [CHUNK]
 """
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -35,8 +36,9 @@ while done < N:
     # each one is pure overhead (and would pile single-use files into
     # the prep cache).  S18_PREP_CACHE=0 keeps learned-class churn out
     # of ~/.cache for the same reason.
-    env = {"S18_PLATFORM": "cpu", "PATH": "/usr/bin:/bin", "HOME": "/root",
-           "PYTHONPATH": str(REPO), "S18_VAULT": "0", "S18_PREP_CACHE": "0"}
+    env = {"JAX_PLATFORMS": "cpu", "PATH": "/usr/bin:/bin",
+           "HOME": os.environ.get("HOME", ""), "PYTHONPATH": str(REPO),
+           "S18_VAULT": "0", "S18_PREP_CACHE": "0"}
     args = [sys.executable, str(REPO / "tests" / "_fuzz_impl.py"),
             str(n), str(SEED + chunk_i)]
     if mesh:
